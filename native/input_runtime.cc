@@ -1,6 +1,6 @@
 // Native input runtime: mmap'd packed datasets + threaded batch assembly.
 //
-// Host-side counterpart of the TPU compute path — the rebuild of the role the
+// Host-side counterpart of the device compute path — the rebuild of the role the
 // external `dataset_loaders` package plays for the reference ([ref:
 // data_loader.py], SURVEY.md §4.5: "thread pool fills a queue of
 // minibatches"). The reference decodes/augments in Python threads under the

@@ -56,7 +56,7 @@ def main(argv=None) -> int:
     p.add_argument("--dae-widths", nargs="*", type=int, default=None)
     p.add_argument("--dae-encoder", choices=["pool", "stride"], default="pool",
                    help="encoder style: conv+maxpool or stride-2 convs "
-                        "(TPU-fast; accuracy validated by this demo)")
+                        "(fewer passes; accuracy validated by this demo)")
     p.add_argument("--k-max", type=int, default=8)
     p.add_argument("--eps-grid", nargs="*", type=float, default=[0.05, 0.1, 0.2, 0.4, 0.7, 1.0])
     p.add_argument("--mode", choices=["score", "energy"], default="score",
@@ -74,6 +74,9 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--json", action="store_true", help="print one JSON result line")
     args = p.parse_args(argv)
+    from iterative_inference_segm.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
 
     # fail invalid combinations BEFORE the (potentially long) training runs
     if args.engine == "half" and args.dae_stem_pool < 1:
@@ -85,15 +88,15 @@ def main(argv=None) -> int:
 
     import jax.numpy as jnp
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-    from iterative_inference_segm_tpu.inference import grid_search_eps_k, make_refiner
-    from iterative_inference_segm_tpu.inference.search import grid_search_eps_k_half
-    from iterative_inference_segm_tpu.inference.fused import make_half_refiner
-    from iterative_inference_segm_tpu.models import fcn8_apply
-    from iterative_inference_segm_tpu.ops.metrics import confusion_matrix, metrics_from_confusion
-    from iterative_inference_segm_tpu.data.pipeline import normalize_image
-    from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8, train_dae
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.data.synthetic import synthetic_batches
+    from iterative_inference_segm.inference import grid_search_eps_k, make_refiner
+    from iterative_inference_segm.inference.search import grid_search_eps_k_half
+    from iterative_inference_segm.inference.fused import make_half_refiner
+    from iterative_inference_segm.models import fcn8_apply
+    from iterative_inference_segm.ops.metrics import confusion_matrix, metrics_from_confusion
+    from iterative_inference_segm.data.pipeline import normalize_image
+    from iterative_inference_segm.train import TrainConfig, train_fcn8, train_dae
 
     cfg = dataclasses.replace(
         CAMVID, train_crop=(args.height - 16, args.width - 16)
@@ -142,7 +145,7 @@ def main(argv=None) -> int:
     else:
         # one dispatch table for apply + per-step kwargs (models.registry) —
         # the compute_dtype forwarding ADVICE r2 caught lives there once
-        from iterative_inference_segm_tpu.models.registry import (
+        from iterative_inference_segm.models.registry import (
             score_apply_fn,
             score_kwargs as arch_score_kwargs,
         )

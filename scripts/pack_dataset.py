@@ -42,8 +42,8 @@ def main(argv=None) -> int:
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
 
-    from iterative_inference_segm_tpu.data.config_datasets import DATASET_CONFIGS
-    from iterative_inference_segm_tpu.data.native_loader import pack_dataset
+    from iterative_inference_segm.data.config_datasets import DATASET_CONFIGS
+    from iterative_inference_segm.data.native_loader import pack_dataset
 
     cfg = DATASET_CONFIGS[args.dataset]
     os.makedirs(args.out, exist_ok=True)
@@ -52,7 +52,7 @@ def main(argv=None) -> int:
         args.from_dir = args.from_camvid
         args.dataset = "camvid"
     if args.from_dir:
-        from iterative_inference_segm_tpu.data.loaders import load_dataset_split
+        from iterative_inference_segm.data.loaders import load_dataset_split
 
         for split in ("train", "val", "test"):
             images, labels = load_dataset_split(args.dataset, args.from_dir, split, cfg)
@@ -60,7 +60,7 @@ def main(argv=None) -> int:
             pack_dataset(out, images, labels, cfg)
             print(f"packed {split}: {images.shape[0]} samples -> {out}")
     elif args.synthetic:
-        from iterative_inference_segm_tpu.data.synthetic import synthetic_example
+        from iterative_inference_segm.data.synthetic import synthetic_example
 
         counts = {"train": args.num_train, "val": args.num_val, "test": args.num_test}
         for si, (split, n) in enumerate(counts.items()):

@@ -30,12 +30,12 @@ def parse_args(argv=None):
     p.add_argument("--wire", default="f32", choices=["f32", "u8"],
                    help="packed-path wire format: 'f32' = host-normalized "
                         "floats; 'u8' = raw bytes to the device, normalize "
-                        "on-chip (see ARCHITECTURE.md 'End-to-end serving path')")
+                        "on the device (4x fewer bytes across the link)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--devices", default=None,
                    help="data-parallel training over N devices ('auto' = all "
                         "visible): batches shard over a 'data' mesh, gradients "
-                        "all-reduce over ICI (parallel/, SURVEY.md §3.4)")
+                        "all-reduce across devices (parallel/, SURVEY.md §3.4)")
     p.add_argument("--fcn-npz", default=None, help="frozen FCN-8 weights (flat npz)")
     p.add_argument("--concat-h", nargs="*", default=["pool4"],
                    help="FCN taps to condition on (e.g. pool3 pool4 fc7); empty = unconditional")
@@ -52,11 +52,11 @@ def parse_args(argv=None):
                    help="encoder channel widths (default from models.dae)")
     p.add_argument("--dae-encoder", choices=["pool", "stride"], default="pool",
                    help="encoder style: conv+maxpool (classic) or stride-2 "
-                        "convs (TPU-fast; same param shapes)")
+                        "convs (fewer passes; same param shapes)")
     p.add_argument("--dae-stem-pool", type=int, default=0,
-                   help="pool the input map N times before the encoder (TPU latency opt)")
+                   help="pool the input map N times before the encoder (latency opt)")
     p.add_argument("--arch", default="dae", choices=["dae", "mirror", "contextmod"],
-                   help="score-network architecture: 'dae' = the TPU score-fusion "
+                   help="score-network architecture: 'dae' = the score-fusion "
                         "flagship; 'mirror' = the reference-parity conv/pool <-> "
                         "unpool/conv mirror (models/dae_mirror.py); 'contextmod' "
                         "= dilated context module")
@@ -84,14 +84,17 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from iterative_inference_segm.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax
     import jax.numpy as jnp
 
-    from iterative_inference_segm_tpu.data.config_datasets import DATASET_CONFIGS
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.train import TrainConfig, train_dae
-    from iterative_inference_segm_tpu.utils.checkpoint import load_npz
-    from iterative_inference_segm_tpu.utils.experiment import build_experiment_name
+    from iterative_inference_segm.data.config_datasets import DATASET_CONFIGS
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.train import TrainConfig, train_dae
+    from iterative_inference_segm.utils.checkpoint import load_npz
+    from iterative_inference_segm.utils.experiment import build_experiment_name
 
     cfg = DATASET_CONFIGS[args.dataset]
     height = width = None
@@ -122,7 +125,7 @@ def main(argv=None) -> int:
 
     raw_wire = args.wire == "u8"
     if args.packed:
-        from iterative_inference_segm_tpu.data.native_loader import NativeDataset
+        from iterative_inference_segm.data.native_loader import NativeDataset
 
         train_ds = NativeDataset(os.path.join(args.packed, "train.iist"))
         val_ds = NativeDataset(os.path.join(args.packed, "val.iist"))
@@ -143,7 +146,7 @@ def main(argv=None) -> int:
 
         val_data = lambda: val_ds.batches(args.batch_size, raw=raw_wire)
     elif args.synthetic or not args.data_root:
-        from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
+        from iterative_inference_segm.data.synthetic import synthetic_batches
 
         train_data = lambda: synthetic_batches(
             cfg=cfg, batch_size=args.batch_size, num_batches=args.num_train_batches,
@@ -154,8 +157,8 @@ def main(argv=None) -> int:
             height=height, width=width, seed=args.seed + 10_000,
         )
     else:
-        from iterative_inference_segm_tpu.data.camvid import iterate_split
-        from iterative_inference_segm_tpu.data.loaders import (
+        from iterative_inference_segm.data.camvid import iterate_split
+        from iterative_inference_segm.data.loaders import (
             epoch_reshuffled,
             load_dataset_split,
         )
@@ -183,7 +186,7 @@ def main(argv=None) -> int:
             seed=args.seed,
         ),
     )
-    from iterative_inference_segm_tpu.parallel.mesh import mesh_from_flag
+    from iterative_inference_segm.parallel.mesh import mesh_from_flag
 
     mesh = mesh_from_flag(args.devices, batch_size=args.batch_size)
     if mesh is not None:

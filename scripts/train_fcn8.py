@@ -25,14 +25,13 @@ def parse_args(argv=None):
     p.add_argument("--wire", default="f32", choices=["f32", "u8"],
                    help="packed-path wire format: 'f32' = host-normalized "
                         "floats (reference layout); 'u8' = raw bytes to the "
-                        "device, normalize on-chip (4x fewer bytes across "
-                        "the link, ~20x faster host producer — ARCHITECTURE"
-                        ".md 'End-to-end serving path')")
+                        "device, normalize there (4x fewer bytes across "
+                        "the link, no per-pixel host arithmetic)")
     p.add_argument("--synthetic", action="store_true", help="use the synthetic dataset")
     p.add_argument("--devices", default=None,
                    help="data-parallel training over N devices ('auto' = all "
                         "visible): batches shard over a 'data' mesh, gradients "
-                        "all-reduce over ICI (parallel/, SURVEY.md §3.4)")
+                        "all-reduce across devices (parallel/, SURVEY.md §3.4)")
     p.add_argument("--profile-dir", default=None, help="capture a jax.profiler trace of epoch 0")
     p.add_argument("--learning-rate", type=float, default=1e-3)
     p.add_argument("--weight-decay", type=float, default=1e-4)
@@ -60,11 +59,14 @@ def parse_args(argv=None):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    from iterative_inference_segm.utils.compile_cache import configure_compile_cache
+
+    configure_compile_cache()
     import jax.numpy as jnp
 
-    from iterative_inference_segm_tpu.data.config_datasets import DATASET_CONFIGS
-    from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8
-    from iterative_inference_segm_tpu.utils.experiment import build_experiment_name
+    from iterative_inference_segm.data.config_datasets import DATASET_CONFIGS
+    from iterative_inference_segm.train import TrainConfig, train_fcn8
+    from iterative_inference_segm.utils.experiment import build_experiment_name
 
     cfg = DATASET_CONFIGS[args.dataset]
     height = width = None
@@ -87,7 +89,7 @@ def main(argv=None) -> int:
 
     raw_wire = args.wire == "u8"
     if args.packed:
-        from iterative_inference_segm_tpu.data.native_loader import NativeDataset
+        from iterative_inference_segm.data.native_loader import NativeDataset
 
         train_ds = NativeDataset(os.path.join(args.packed, "train.iist"))
         val_ds = NativeDataset(os.path.join(args.packed, "val.iist"))
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
 
         val_data = lambda: val_ds.batches(args.batch_size, raw=raw_wire)
     elif args.synthetic or not args.data_root:
-        from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
+        from iterative_inference_segm.data.synthetic import synthetic_batches
 
         train_data = lambda: synthetic_batches(
             cfg=cfg, batch_size=args.batch_size, num_batches=args.num_train_batches,
@@ -119,8 +121,8 @@ def main(argv=None) -> int:
             height=height, width=width, seed=args.seed + 10_000,
         )
     else:
-        from iterative_inference_segm_tpu.data.camvid import iterate_split
-        from iterative_inference_segm_tpu.data.loaders import (
+        from iterative_inference_segm.data.camvid import iterate_split
+        from iterative_inference_segm.data.loaders import (
             epoch_reshuffled,
             load_dataset_split,
         )
@@ -145,7 +147,7 @@ def main(argv=None) -> int:
     )
     params = None
     if args.load_npz or args.load_reference_npz:
-        from iterative_inference_segm_tpu.models import init_fcn8
+        from iterative_inference_segm.models import init_fcn8
         import jax
 
         template = init_fcn8(
@@ -153,19 +155,19 @@ def main(argv=None) -> int:
             in_channels=cfg.in_channels, fc_channels=fc_channels,
         )
         if args.load_reference_npz:
-            from iterative_inference_segm_tpu.utils.import_weights import import_lasagne_npz
+            from iterative_inference_segm.utils.import_weights import import_lasagne_npz
 
             params = import_lasagne_npz(args.load_reference_npz, template)
         else:
-            from iterative_inference_segm_tpu.utils.checkpoint import load_npz
+            from iterative_inference_segm.utils.checkpoint import load_npz
 
             params = load_npz(args.load_npz, template)
 
     import contextlib
 
-    from iterative_inference_segm_tpu.utils import profiling
+    from iterative_inference_segm.utils import profiling
 
-    from iterative_inference_segm_tpu.parallel.mesh import mesh_from_flag
+    from iterative_inference_segm.parallel.mesh import mesh_from_flag
 
     mesh = mesh_from_flag(args.devices, batch_size=args.batch_size)
     if mesh is not None:

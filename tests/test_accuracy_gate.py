@@ -45,21 +45,21 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import iterative_inference_segm_tpu
-from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-from iterative_inference_segm_tpu.data.pipeline import normalize_image
-from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-from iterative_inference_segm_tpu.inference import make_refiner
-from iterative_inference_segm_tpu.inference.fused import make_half_refiner
-from iterative_inference_segm_tpu.inference.search import (
+import iterative_inference_segm
+from iterative_inference_segm.data.config_datasets import CAMVID
+from iterative_inference_segm.data.pipeline import normalize_image
+from iterative_inference_segm.data.synthetic import synthetic_batches
+from iterative_inference_segm.inference import make_refiner
+from iterative_inference_segm.inference.fused import make_half_refiner
+from iterative_inference_segm.inference.search import (
     grid_search_eps_k,
     grid_search_eps_k_half,
 )
-from iterative_inference_segm_tpu.models import fcn8_apply, init_fcn8
-from iterative_inference_segm_tpu.models.registry import init_score_template, score_apply_fn
-from iterative_inference_segm_tpu.ops.metrics import confusion_matrix, metrics_from_confusion
-from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8, train_dae
-from iterative_inference_segm_tpu.utils.checkpoint import load_npz, read_npz_meta, save_npz
+from iterative_inference_segm.models import fcn8_apply, init_fcn8
+from iterative_inference_segm.models.registry import init_score_template, score_apply_fn
+from iterative_inference_segm.ops.metrics import confusion_matrix, metrics_from_confusion
+from iterative_inference_segm.train import TrainConfig, train_fcn8, train_dae
+from iterative_inference_segm.utils.checkpoint import load_npz, read_npz_meta, save_npz
 
 GATE_DELTA_MIOU = 0.05  # flagship cell (calibrated +0.123)
 MATRIX_DELTA_MIOU = 0.03  # other cells (VERDICT r3 #5: conservative floors)
@@ -79,7 +79,7 @@ _SRC_DIRS = ("models", "ops", "train", "data", "utils")
 
 
 def _cache_key() -> str:
-    pkg = pathlib.Path(iterative_inference_segm_tpu.__file__).resolve().parent
+    pkg = pathlib.Path(iterative_inference_segm.__file__).resolve().parent
     h = hashlib.sha256(FIXTURE_CONFIG.encode())
     for d in _SRC_DIRS:
         for f in sorted((pkg / d).rglob("*.py")):
@@ -238,7 +238,7 @@ def test_refinement_gain_gate_general_engine(trained_bundle):
     """The semantics-faithful general engine must ALSO clear the gate with
     the flagship pair (guards against half-engine-only regressions of
     dae_apply / refinement_scan)."""
-    from iterative_inference_segm_tpu.models import dae_apply
+    from iterative_inference_segm.models import dae_apply
 
     cfg, params, val, test = trained_bundle
     refine = make_refiner(

@@ -1,19 +1,19 @@
-"""Checkpoint round-trips: npz flat export/import + orbax pytrees."""
+"""Checkpoint round-trips: flat npz export/import + step-directory pytrees."""
 
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import init_fcn8
-from iterative_inference_segm_tpu.utils.checkpoint import (
+from iterative_inference_segm.models import init_fcn8
+from iterative_inference_segm.utils.checkpoint import (
     save_npz,
     load_npz,
     save_checkpoint,
     restore_checkpoint,
     latest_step,
 )
-from iterative_inference_segm_tpu.utils.experiment import build_experiment_name, MetricLogger
+from iterative_inference_segm.utils.experiment import build_experiment_name, MetricLogger
 
 
 def _tree_equal(a, b):
@@ -49,7 +49,7 @@ def test_npz_meta_roundtrip_and_validation(tmp_path):
     """Architecture metadata (ADVICE r2): stored under __meta__/, invisible
     to weight loading, validated by check_npz_meta — mismatches raise,
     absent metadata warns."""
-    from iterative_inference_segm_tpu.utils.checkpoint import (
+    from iterative_inference_segm.utils.checkpoint import (
         check_npz_meta,
         read_npz_meta,
     )
@@ -84,9 +84,9 @@ def test_predictor_rejects_wrong_encoder_flag(tmp_path):
     """The shape-invisible encoder knob must fail LOUDLY at serving time
     when it contradicts the checkpoint's stamped metadata (ADVICE r2 —
     the silent-degradation footgun)."""
-    from iterative_inference_segm_tpu.inference import Predictor
-    from iterative_inference_segm_tpu.models import init_dae, init_fcn8 as _init_fcn8
-    from iterative_inference_segm_tpu.models.dae import DAE_H_CHANNELS
+    from iterative_inference_segm.inference import Predictor
+    from iterative_inference_segm.models import init_dae, init_fcn8 as _init_fcn8
+    from iterative_inference_segm.models.dae import DAE_H_CHANNELS
 
     fcn = _init_fcn8(jax.random.PRNGKey(0), n_classes=11, fc_channels=8)
     save_npz(tmp_path / "fcn.npz", jax.device_get(fcn), meta={"arch": "fcn8"})
@@ -105,12 +105,77 @@ def test_predictor_rejects_wrong_encoder_flag(tmp_path):
         )
 
 
-def test_orbax_roundtrip(tmp_path):
+def test_checkpoint_roundtrip(tmp_path):
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=3, fc_channels=8)
     save_checkpoint(tmp_path, 7, params)
     assert latest_step(tmp_path) == 7
     restored = restore_checkpoint(tmp_path, 7, jax.tree.map(np.zeros_like, params))
     _tree_equal(params, restored)
+
+
+def _train_state():
+    from iterative_inference_segm.train.loop import TrainConfig, make_optimizer
+
+    params = init_fcn8(jax.random.PRNGKey(0), n_classes=3, fc_channels=8)
+    tx = make_optimizer(TrainConfig())
+    opt = tx.init(params)
+    grads = jax.tree.map(jnp.ones_like, params)
+    _, opt = tx.update(grads, opt, params)  # nonzero moments, count 1
+    return {"params": params, "opt_state": opt}
+
+
+def test_checkpoint_async_save_then_restore(tmp_path):
+    """wait=False writes on a background thread; the host copy is taken
+    before save_checkpoint returns, and restore waits for the write."""
+    from iterative_inference_segm.utils.checkpoint import wait_for_checkpoints
+
+    state = _train_state()
+    host = jax.device_get(state)
+    save_checkpoint(tmp_path, 0, host, wait=False)
+    save_checkpoint(tmp_path, 1, host, wait=False)
+    restored = restore_checkpoint(tmp_path, 1, state)
+    wait_for_checkpoints()
+    assert latest_step(tmp_path) == 1
+    _tree_equal(state, restored)
+    assert type(restored["opt_state"]) is type(state["opt_state"])
+
+
+def test_checkpoint_bf16_leaves_roundtrip(tmp_path):
+    tree = {"w": jnp.linspace(-3, 3, 12, dtype=jnp.bfloat16).reshape(3, 4),
+            "n": jnp.arange(3, dtype=jnp.int32)}
+    save_checkpoint(tmp_path, 0, tree)
+    restored = restore_checkpoint(tmp_path, 0, tree)
+    assert restored["w"].dtype == jnp.bfloat16 and restored["n"].dtype == jnp.int32
+    _tree_equal(tree, restored)
+
+
+def test_checkpoint_overwrite_keeps_one_step_dir(tmp_path):
+    save_checkpoint(tmp_path, 3, {"a": jnp.zeros((2,))})
+    save_checkpoint(tmp_path, 3, {"a": jnp.ones((2,))})
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["3"]
+    restored = restore_checkpoint(tmp_path, 3, {"a": jnp.zeros((2,))})
+    np.testing.assert_array_equal(np.asarray(restored["a"]), [1.0, 1.0])
+
+
+@pytest.mark.parametrize(
+    "template,error",
+    [({"a": jnp.zeros((3,))}, ValueError), ({"a": jnp.zeros((2,)), "b": jnp.zeros(())}, KeyError)],
+)
+def test_checkpoint_template_mismatch_raises(tmp_path, template, error):
+    save_checkpoint(tmp_path, 0, {"a": jnp.zeros((2,))})
+    with pytest.raises(error):
+        restore_checkpoint(tmp_path, 0, template)
+
+
+def test_wait_for_checkpoints_reraises_background_error(tmp_path):
+    from iterative_inference_segm.utils.checkpoint import wait_for_checkpoints
+
+    blocker = tmp_path / "file"
+    blocker.write_text("not a directory")
+    save_checkpoint(blocker, 0, {"a": jnp.zeros((2,))}, wait=False)
+    with pytest.raises(OSError):
+        wait_for_checkpoints()
+    wait_for_checkpoints()  # the error is reported once
 
 
 def test_latest_step_empty(tmp_path):
@@ -139,9 +204,9 @@ def test_restore_checkpoint_sharded_tp_layout(tmp_path, cpu_devices):
     fc6/fc7 TP layout on a mesh — values identical, leaves laid out per
     tp_shardings with no host-side full-size materialize step. The save and
     restore topologies are independent (production restart contract)."""
-    from iterative_inference_segm_tpu.parallel import make_mesh
-    from iterative_inference_segm_tpu.parallel.tp import tp_shardings
-    from iterative_inference_segm_tpu.utils.checkpoint import (
+    from iterative_inference_segm.parallel import make_mesh
+    from iterative_inference_segm.parallel.tp import tp_shardings
+    from iterative_inference_segm.utils.checkpoint import (
         restore_checkpoint_sharded,
     )
 
@@ -164,9 +229,9 @@ def test_restore_checkpoint_sharded_from_sharded_save(tmp_path, cpu_devices):
     replicated (topology-change restart, e.g. scaling in)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from iterative_inference_segm_tpu.parallel import make_mesh
-    from iterative_inference_segm_tpu.parallel.tp import shard_params_tp
-    from iterative_inference_segm_tpu.utils.checkpoint import (
+    from iterative_inference_segm.parallel import make_mesh
+    from iterative_inference_segm.parallel.tp import shard_params_tp
+    from iterative_inference_segm.utils.checkpoint import (
         restore_checkpoint_sharded,
     )
 

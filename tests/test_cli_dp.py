@@ -23,7 +23,7 @@ def _load_script(name):
 
 
 def test_mesh_from_flag_semantics():
-    from iterative_inference_segm_tpu.parallel.mesh import mesh_from_flag
+    from iterative_inference_segm.parallel.mesh import mesh_from_flag
 
     assert mesh_from_flag(None) is None
     assert mesh_from_flag("1") is None  # single device: plain path
@@ -83,11 +83,11 @@ def test_dp_eval_step_matches_single_device():
     not a smoke test."""
     import dataclasses
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.parallel.mesh import make_mesh
-    from iterative_inference_segm_tpu.train.loop import TrainConfig, make_optimizer
-    from iterative_inference_segm_tpu.train.train_fcn8 import make_fcn8_train_step
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.parallel.mesh import make_mesh
+    from iterative_inference_segm.train.loop import TrainConfig, make_optimizer
+    from iterative_inference_segm.train.train_fcn8 import make_fcn8_train_step
 
     cfg = dataclasses.replace(CAMVID, train_crop=(32, 32))
     tcfg = TrainConfig(batch_size=8, seed=0)
@@ -114,11 +114,11 @@ def test_dp_train_step_improves_loss():
     reduces the loss on that batch (sanity of the pmean'd grads wiring)."""
     import dataclasses
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.parallel.mesh import make_mesh
-    from iterative_inference_segm_tpu.train.loop import TrainConfig, make_optimizer
-    from iterative_inference_segm_tpu.train.train_fcn8 import make_fcn8_train_step
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.parallel.mesh import make_mesh
+    from iterative_inference_segm.train.loop import TrainConfig, make_optimizer
+    from iterative_inference_segm.train.train_fcn8 import make_fcn8_train_step
 
     cfg = dataclasses.replace(CAMVID, train_crop=(32, 32))
     tcfg = TrainConfig(batch_size=8, seed=0, learning_rate=1e-3)
@@ -169,12 +169,12 @@ def test_padded_batch_putter_is_exact(cpu_devices):
     makes DP training/eval on non-divisible disk splits correct."""
     import dataclasses
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.parallel.mesh import make_mesh
-    from iterative_inference_segm_tpu.parallel.sharding import padded_batch_putter
-    from iterative_inference_segm_tpu.train.loop import TrainConfig, make_optimizer
-    from iterative_inference_segm_tpu.train.train_fcn8 import make_fcn8_train_step
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.parallel.mesh import make_mesh
+    from iterative_inference_segm.parallel.sharding import padded_batch_putter
+    from iterative_inference_segm.train.loop import TrainConfig, make_optimizer
+    from iterative_inference_segm.train.train_fcn8 import make_fcn8_train_step
 
     cfg = dataclasses.replace(CAMVID, train_crop=(32, 32))
     tcfg = TrainConfig(batch_size=8, seed=0)
@@ -226,8 +226,8 @@ def test_dp_training_on_u8_wire(tmp_path, capsys):
     on-chip. (The native loader pads its own tail batches, so the putter's
     pad branch is exercised separately by
     test_padded_batch_putter_uint8_short_batch.)"""
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.data.native_loader import pack_dataset
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.data.native_loader import pack_dataset
 
     rng = np.random.default_rng(0)
     packed = tmp_path / "packed"
@@ -252,9 +252,9 @@ def test_padded_batch_putter_uint8_short_batch():
     """A non-packed uint8 source with a short tail must pad with zero image
     BYTES and uint8 void labels, preserving dtypes through the sharded put —
     the u8-wire contract for DP sources that do not self-pad."""
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.parallel.mesh import make_mesh
-    from iterative_inference_segm_tpu.parallel.sharding import padded_batch_putter
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.parallel.mesh import make_mesh
+    from iterative_inference_segm.parallel.sharding import padded_batch_putter
 
     rng = np.random.default_rng(0)
     x = rng.integers(0, 256, (5, 8, 8, 3), np.uint8)  # 5 % 4 != 0
@@ -349,8 +349,8 @@ def test_iterative_inference_cli_pp_u8_wire(tmp_path, capsys):
     """--pp composes with the u8 packed wire: raw bytes cross the link,
     the loader's on-device normalize (file-header stats) feeds the
     pipeline. Smoke: completes and reports the IoU table."""
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.data.native_loader import pack_dataset
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.data.native_loader import pack_dataset
 
     rng = np.random.default_rng(0)
     packed = tmp_path / "packed"

@@ -79,7 +79,7 @@ def test_mirror_arch_train_then_infer_and_reference_npz(tmp_path):
     assert rc == 0
 
     # reference-format positional npz (tied variant) through --dae-mirror-npz
-    from iterative_inference_segm_tpu.models import init_mirror_dae
+    from iterative_inference_segm.models import init_mirror_dae
     from tests.test_mirror_dae import _to_positional
 
     src = init_mirror_dae(
@@ -104,8 +104,8 @@ def test_packed_u8_wire_trains_both_nets(tmp_path):
     step). Pins the whole seam: pack -> native raw batches -> CLI -> train."""
     import numpy as np
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.data.native_loader import pack_dataset
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.data.native_loader import pack_dataset
 
     rng = np.random.default_rng(0)
     packed = tmp_path / "packed"

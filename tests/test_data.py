@@ -4,7 +4,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.data import (
+from iterative_inference_segm.data import (
     DATASET_CONFIGS,
     synthetic_batches,
     synthetic_example,
@@ -12,8 +12,8 @@ from iterative_inference_segm_tpu.data import (
     random_crop_and_flip,
     iterate_split,
 )
-from iterative_inference_segm_tpu.data.config_datasets import CAMVID, EM
-from iterative_inference_segm_tpu.utils.colorize import colorize_labels
+from iterative_inference_segm.data.config_datasets import CAMVID, EM
+from iterative_inference_segm.utils.colorize import colorize_labels
 
 
 def test_dataset_registry():
@@ -127,7 +127,7 @@ def test_colorize_labels():
 
 
 def test_device_prefetch_order_and_placement():
-    from iterative_inference_segm_tpu.data import device_prefetch
+    from iterative_inference_segm.data import device_prefetch
 
     items = [{"x": np.full((2, 2), i, np.float32)} for i in range(5)]
     out = list(device_prefetch(items, depth=2))
@@ -138,15 +138,15 @@ def test_device_prefetch_order_and_placement():
 
 
 def test_device_prefetch_short_iterator():
-    from iterative_inference_segm_tpu.data import device_prefetch
+    from iterative_inference_segm.data import device_prefetch
 
     out = list(device_prefetch([np.ones(1)], depth=4))
     assert len(out) == 1
 
 
 def test_device_prefetch_with_sharding(cpu_devices):
-    from iterative_inference_segm_tpu.data import device_prefetch
-    from iterative_inference_segm_tpu.parallel import make_mesh, batch_sharding
+    from iterative_inference_segm.data import device_prefetch
+    from iterative_inference_segm.parallel import make_mesh, batch_sharding
 
     mesh = make_mesh(("data",))
     sh = batch_sharding(mesh, 2)
@@ -161,8 +161,8 @@ def test_epoch_reshuffled_fresh_order_each_epoch():
     fixed permutation repeated every epoch."""
     import numpy as np
 
-    from iterative_inference_segm_tpu.data.camvid import iterate_split
-    from iterative_inference_segm_tpu.data.loaders import epoch_reshuffled
+    from iterative_inference_segm.data.camvid import iterate_split
+    from iterative_inference_segm.data.loaders import epoch_reshuffled
 
     imgs = np.arange(12, dtype=np.float32).reshape(12, 1, 1, 1).repeat(3, -1)
     labs = np.arange(12, dtype=np.int32).reshape(12, 1, 1)

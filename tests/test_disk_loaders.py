@@ -8,10 +8,10 @@ import pytest
 PIL = pytest.importorskip("PIL")
 from PIL import Image
 
-from iterative_inference_segm_tpu.data.config_datasets import EM, POLYPS
-from iterative_inference_segm_tpu.data.em import load_split as load_em
-from iterative_inference_segm_tpu.data.polyps import load_split as load_polyps
-from iterative_inference_segm_tpu.data.loaders import load_dataset_split
+from iterative_inference_segm.data.config_datasets import EM, POLYPS
+from iterative_inference_segm.data.em import load_split as load_em
+from iterative_inference_segm.data.polyps import load_split as load_polyps
+from iterative_inference_segm.data.loaders import load_dataset_split
 
 
 @pytest.fixture()
@@ -122,7 +122,7 @@ def test_pack_em_end_to_end(isbi_tree, tmp_path_factory):
     -> native loader round trip."""
     root, cfg, _, _ = isbi_tree
     out = tmp_path_factory.mktemp("packed")
-    from iterative_inference_segm_tpu.data.native_loader import NativeDataset, pack_dataset
+    from iterative_inference_segm.data.native_loader import NativeDataset, pack_dataset
 
     imgs, labs = load_em(root, "val", cfg)
     pack_dataset(out / "val.iist", imgs, labs, cfg)

@@ -40,7 +40,7 @@ def _write_camvid_tree(root, splits=("val", "test"), n=4, hw=(48, 64), n_classes
 
 
 def test_first_contact_rehearsal(tmp_path, capsys):
-    from iterative_inference_segm_tpu.models import init_fcn8
+    from iterative_inference_segm.models import init_fcn8
 
     # tests reuse the synthetic reference-checkpoint builders the import unit
     # tests already validate — this test is about the CLI seam
@@ -81,9 +81,9 @@ def test_first_contact_mirror_rehearsal(tmp_path, capsys, tied):
     """PARITY.md §3B: the mirror-DAE import command through the real CLI —
     reference-era positional FCN npz + positional mirror-DAE npz (tied and
     untied layouts), ending in the searched per-class IoU table."""
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.models.dae import DAE_H_CHANNELS
-    from iterative_inference_segm_tpu.models.dae_mirror import init_mirror_dae
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.models.dae import DAE_H_CHANNELS
+    from iterative_inference_segm.models.dae_mirror import init_mirror_dae
 
     from tests.test_import_weights import (
         _positional_list,

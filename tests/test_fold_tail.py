@@ -6,9 +6,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
-from iterative_inference_segm_tpu.models.dae import init_dae, dae_core
-from iterative_inference_segm_tpu.inference.fused import (
+from iterative_inference_segm.models import init_fcn8, fcn8_apply
+from iterative_inference_segm.models.dae import init_dae, dae_core
+from iterative_inference_segm.inference.fused import (
     fold_half_tail,
     folded_core_out,
     folded_step_logits,
@@ -112,3 +112,28 @@ def test_fold_requires_score_and_full_tail():
     x = jax.random.normal(jax.random.PRNGKey(2), (1, 48, 64, 3))
     _, yk = refine(x)
     assert np.isfinite(np.asarray(yk, np.float32)).all()
+
+
+@pytest.mark.parametrize("encoder", ["pool", "stride"])
+def test_fold_composes_weights_at_highest_precision(encoder):
+    """Every contraction that composes the folded kernels asks for HIGHEST
+    precision, so a GPU never runs it in TF32, and the result matches a
+    float64 composition."""
+    dae = _dae()
+    jaxpr = jax.make_jaxpr(lambda p: fold_half_tail(p, encoder=encoder))(dae)
+    dots = [e for e in jaxpr.eqns if e.primitive.name == "dot_general"]
+    assert dots, "fold_half_tail composed no kernels"
+    for e in dots:
+        assert e.params["precision"] == (
+            jax.lax.Precision.HIGHEST, jax.lax.Precision.HIGHEST
+        ), e.params["precision"]
+
+    fk = fold_half_tail(dae, encoder=encoder)
+    w_out = np.asarray(dae["out"]["w"][0, 0], np.float64)
+    up1p = np.einsum("hwim,mo->hwio", np.asarray(dae["up1"]["w"], np.float64), w_out)
+    np.testing.assert_allclose(np.asarray(fk["up1p"]), up1p, rtol=1e-5, atol=1e-6)
+    if encoder == "pool":
+        bp = np.asarray(dae["score_enc1"]["b"], np.float64) @ w_out + np.asarray(
+            dae["out"]["b"], np.float64
+        )
+        np.testing.assert_allclose(np.asarray(fk["bp"]), bp, rtol=1e-5, atol=1e-6)

@@ -5,15 +5,15 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
-from iterative_inference_segm_tpu.models.dae import (
+from iterative_inference_segm.models import init_fcn8, fcn8_apply
+from iterative_inference_segm.models.dae import (
     init_dae,
     dae_apply,
     dae_septail_logits,
     dae_core,
 )
-from iterative_inference_segm_tpu.inference.iterative import make_refiner, refinement_scan
-from iterative_inference_segm_tpu.inference.fused import (
+from iterative_inference_segm.inference.iterative import make_refiner, refinement_scan
+from iterative_inference_segm.inference.fused import (
     fused_refinement_scan,
     make_fused_refiner,
     phase_merge,

@@ -7,7 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.ops.conv import (
+from iterative_inference_segm.ops.conv import (
     conv2d,
     conv_transpose2d,
     max_pool,
@@ -156,7 +156,7 @@ def _mini_fcn8_numpy(params, x, n_classes):
 
 
 def test_fcn8_forward_matches_numpy_golden():
-    from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
+    from iterative_inference_segm.models import init_fcn8, fcn8_apply
 
     n_classes = 3
     params = init_fcn8(jax.random.PRNGKey(42), n_classes=n_classes, fc_channels=8)
@@ -172,8 +172,8 @@ def test_fcn8_forward_matches_numpy_golden():
 def test_refinement_update_golden_with_real_dae():
     """One score step with the real (tiny) DAE: y1 = y0 - eps*(y0 - r(y0)).
     Pins that refinement_scan applies exactly this update."""
-    from iterative_inference_segm_tpu.models import init_dae, dae_apply
-    from iterative_inference_segm_tpu.inference import refinement_scan
+    from iterative_inference_segm.models import init_dae, dae_apply
+    from iterative_inference_segm.inference import refinement_scan
 
     n_classes = 3
     dae = init_dae(jax.random.PRNGKey(0), n_classes=n_classes, h_specs={})

@@ -5,16 +5,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
-from iterative_inference_segm_tpu.models.dae import init_dae, dae_core
-from iterative_inference_segm_tpu.inference.fused import (
+from iterative_inference_segm.models import init_fcn8, fcn8_apply
+from iterative_inference_segm.models.dae import init_dae, dae_core
+from iterative_inference_segm.inference.fused import (
     full_logits,
     half_logits,
     halfres_refinement_scan,
     make_half_refiner,
 )
-from iterative_inference_segm_tpu.inference.search import grid_search_eps_k_half
-from iterative_inference_segm_tpu.ops.conv import avg_pool
+from iterative_inference_segm.inference.search import grid_search_eps_k_half
+from iterative_inference_segm.ops.conv import avg_pool
 
 C = 5
 
@@ -74,7 +74,7 @@ def test_half_engine_rejects_odd_and_wrong_stem():
 
 def test_half_logits_match_general_tail_at_half_res():
     """For the 'full' tail, half_logits == s + score_input conv (definition)."""
-    from iterative_inference_segm_tpu.ops.conv import conv2d
+    from iterative_inference_segm.ops.conv import conv2d
 
     dae = _dae("full")
     x = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(3), (2, 8, 12, C)), -1)
@@ -88,7 +88,7 @@ def test_half_logits_match_general_tail_at_half_res():
 def test_precomputed_bottleneck_h_is_exact():
     """conv(concat(x, h), W) == conv(x, W_x) + conv(h, W_h): the folded
     conditioning bias is an exact reassociation (f32)."""
-    from iterative_inference_segm_tpu.models.dae import precompute_bottleneck_h
+    from iterative_inference_segm.models.dae import precompute_bottleneck_h
 
     dae = _dae("full")
     h = {"pool4": jax.random.normal(jax.random.PRNGKey(7), (2, 3, 4, 512))}
@@ -105,7 +105,7 @@ def test_precomputed_bottleneck_h_is_exact():
 
 def test_half_search_scores_match_engine():
     """Search row k must equal running the engine with num_steps=k."""
-    from iterative_inference_segm_tpu.ops.metrics import confusion_matrix, metrics_from_confusion
+    from iterative_inference_segm.ops.metrics import confusion_matrix, metrics_from_confusion
 
     fcn, dae, x = _setup()
     labels = jax.random.randint(jax.random.PRNGKey(5), (2, 48, 64), 0, C)
@@ -127,7 +127,7 @@ def test_strided_encoder_shapes_grads_and_fold():
     """encoder='stride' (stride-2 convs, post-reduction skips): same param
     tree, same output scale, differentiable, and the bottleneck-h fold stays
     an exact reassociation."""
-    from iterative_inference_segm_tpu.models.dae import precompute_bottleneck_h
+    from iterative_inference_segm.models.dae import precompute_bottleneck_h
 
     dae = _dae("full")
     h = {"pool4": jax.random.normal(jax.random.PRNGKey(7), (2, 3, 4, 512))}
@@ -152,7 +152,7 @@ def test_strided_encoder_shapes_grads_and_fold():
 
 
 def test_strided_encoder_odd_sizes_and_dae_apply():
-    from iterative_inference_segm_tpu.models import dae_apply
+    from iterative_inference_segm.models import dae_apply
 
     dae = _dae("full")
     h = {"pool4": jax.random.normal(jax.random.PRNGKey(7), (1, 3, 4, 512))}
@@ -163,7 +163,7 @@ def test_strided_encoder_odd_sizes_and_dae_apply():
 
 
 def test_half_refiner_strided_runs_and_moves_iterate():
-    from iterative_inference_segm_tpu.inference.fused import make_half_refiner
+    from iterative_inference_segm.inference.fused import make_half_refiner
 
     fcn, dae, x = _setup("full")
     refine = make_half_refiner(fcn8_apply, fcn, dae, eps=0.3, num_steps=2,
@@ -235,7 +235,7 @@ def test_half_energy_differs_from_score_and_is_finite():
 
 
 def test_half_search_energy_rows_match_engine():
-    from iterative_inference_segm_tpu.ops.metrics import confusion_matrix, metrics_from_confusion
+    from iterative_inference_segm.ops.metrics import confusion_matrix, metrics_from_confusion
 
     fcn, dae, x = _setup()
     labels = jax.random.randint(jax.random.PRNGKey(5), (2, 48, 64), 0, C)
@@ -274,7 +274,7 @@ def _dae_q():
 
 def test_quarter_engine_k0_is_one_rectification():
     """stem_pool=2: x0 = avg_pool^2(y0); rectification chains up_stem1+up_stem2."""
-    from iterative_inference_segm_tpu.models.dae import dae_stem_pool_of
+    from iterative_inference_segm.models.dae import dae_stem_pool_of
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = _dae_q()
@@ -300,7 +300,7 @@ def test_quarter_folded_matches_unfolded_and_refiner_runs():
     }
     h = {"pool4": jax.random.normal(jax.random.PRNGKey(7), (2, 3, 4, 512))}
     y0 = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(3), (2, 48, 64, C)), -1)
-    from iterative_inference_segm_tpu.inference.fused import (
+    from iterative_inference_segm.inference.fused import (
         halfres_refinement_scan_folded,
     )
 
@@ -320,7 +320,7 @@ def test_quarter_folded_matches_unfolded_and_refiner_runs():
 
 
 def test_quarter_search_rows_match_engine():
-    from iterative_inference_segm_tpu.ops.metrics import confusion_matrix, metrics_from_confusion
+    from iterative_inference_segm.ops.metrics import confusion_matrix, metrics_from_confusion
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = _dae_q()

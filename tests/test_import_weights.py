@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
-from iterative_inference_segm_tpu.ops.conv import conv2d
-from iterative_inference_segm_tpu.utils.import_weights import (
+from iterative_inference_segm.models import init_fcn8, fcn8_apply
+from iterative_inference_segm.ops.conv import conv2d
+from iterative_inference_segm.utils.import_weights import (
     VGG16_CONV_NAMES,
     deconv_iohw_to_hwio,
     fc_to_conv1x1_hwio,
@@ -169,7 +169,7 @@ def test_import_fcn8_reference_conv_form_fc_and_flip():
 
 def _positional_list(params, ckpt):
     """Flatten the synthetic named checkpoint into Lasagne build order."""
-    from iterative_inference_segm_tpu.utils.import_weights import FCN8_LASAGNE_ORDER
+    from iterative_inference_segm.utils.import_weights import FCN8_LASAGNE_ORDER
 
     arrays = []
     for name, kind in FCN8_LASAGNE_ORDER:
@@ -184,7 +184,7 @@ def _positional_list(params, ckpt):
 def test_import_lasagne_positional_npz_roundtrip(tmp_path):
     """A reference-era np.savez(*get_all_param_values(net)) loads bit-for-bit
     via shape-driven positional grouping."""
-    from iterative_inference_segm_tpu.utils.import_weights import import_lasagne_npz
+    from iterative_inference_segm.utils.import_weights import import_lasagne_npz
 
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=3, fc_channels=8)
     ckpt = _synthetic_reference_checkpoint(params, np.random.default_rng(5))
@@ -205,7 +205,7 @@ def test_import_lasagne_positional_npz_roundtrip(tmp_path):
 def test_import_lasagne_partial_vgg_only(tmp_path):
     """A VGG-only pretraining checkpoint (the reference's init path) places
     only the conv stack; heads keep their init."""
-    from iterative_inference_segm_tpu.utils.import_weights import import_lasagne_npz
+    from iterative_inference_segm.utils.import_weights import import_lasagne_npz
 
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=3, fc_channels=8)
     ckpt = _synthetic_reference_checkpoint(params, np.random.default_rng(6))
@@ -221,7 +221,7 @@ def test_import_lasagne_partial_vgg_only(tmp_path):
 
 
 def test_import_lasagne_rejects_garbage(tmp_path):
-    from iterative_inference_segm_tpu.utils.import_weights import import_lasagne_npz
+    from iterative_inference_segm.utils.import_weights import import_lasagne_npz
 
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=3, fc_channels=8)
     np.savez(tmp_path / "bad.npz", np.zeros((7, 7, 7)))

@@ -4,12 +4,12 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.inference import (
+from iterative_inference_segm.inference import (
     refinement_scan,
     refine_with_trajectory,
     make_refiner,
 )
-from iterative_inference_segm_tpu.models import (
+from iterative_inference_segm.models import (
     init_fcn8,
     fcn8_apply,
     init_dae,
@@ -150,8 +150,8 @@ def test_refinement_improves_miou_with_oracle_denoiser():
     """Capability guarantee, decoupled from training noise: given a score
     network that contracts toward the ground truth (an oracle denoiser),
     K refinement steps must strictly improve mIoU over the noisy y0."""
-    from iterative_inference_segm_tpu.ops.corruption import corrupt_onehot
-    from iterative_inference_segm_tpu.ops.metrics import jaccard
+    from iterative_inference_segm.ops.corruption import corrupt_onehot
+    from iterative_inference_segm.ops.metrics import jaccard
 
     n_classes = 6
     labels = jax.random.randint(jax.random.PRNGKey(0), (2, 24, 32), 0, n_classes)

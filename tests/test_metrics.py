@@ -3,14 +3,14 @@
 import numpy as np
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.ops import (
+from iterative_inference_segm.ops import (
     confusion_matrix,
     jaccard,
     masked_crossentropy,
     pixel_accuracy,
 )
-from iterative_inference_segm_tpu.ops.losses import crossentropy_probs, l2_regularization
-from iterative_inference_segm_tpu.ops.metrics import metrics_from_confusion
+from iterative_inference_segm.ops.losses import crossentropy_probs, l2_regularization
+from iterative_inference_segm.ops.metrics import metrics_from_confusion
 
 
 def _np_confusion(pred, labels, n):
@@ -105,7 +105,7 @@ def test_metrics_from_confusion_absent_class():
 
 
 def test_masked_crossentropy_matches_gather_oracle():
-    """The one-hot class selection (TPU lane-gather workaround, ops/losses
+    """The one-hot class selection (replaces a class-axis gather, ops/losses
     _select_class) must be value-identical to the take_along_axis gather it
     replaced — it adds exact zeros around the selected element."""
     rng = np.random.default_rng(7)

@@ -7,14 +7,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models.dae_mirror import (
+from iterative_inference_segm.models.dae_mirror import (
     adjoint_kernel,
     init_mirror_dae,
     mirror_dae_apply,
     mirror_depth_of,
     mirror_tied_of,
 )
-from iterative_inference_segm_tpu.ops.conv import conv2d, max_pool, max_unpool
+from iterative_inference_segm.ops.conv import conv2d, max_pool, max_unpool
 
 
 def _rand(key, shape):
@@ -148,7 +148,7 @@ def _to_positional(params, depth, tied):
 
 @pytest.mark.parametrize("tied", [False, True])
 def test_positional_import_roundtrip(tmp_path, tied):
-    from iterative_inference_segm_tpu.utils.import_weights import import_mirror_dae_npz
+    from iterative_inference_segm.utils.import_weights import import_mirror_dae_npz
 
     src = init_mirror_dae(
         jax.random.PRNGKey(7), n_classes=5, h_specs={"pool2": 6}, depth=2,
@@ -177,7 +177,7 @@ def test_positional_import_roundtrip(tmp_path, tied):
 
 
 def test_positional_import_rejects_wrong_order(tmp_path):
-    from iterative_inference_segm_tpu.utils.import_weights import import_mirror_dae_npz
+    from iterative_inference_segm.utils.import_weights import import_mirror_dae_npz
 
     src = init_mirror_dae(
         jax.random.PRNGKey(7), n_classes=5, h_specs={}, depth=2, widths=(8, 12)
@@ -192,7 +192,7 @@ def test_positional_import_rejects_wrong_order(tmp_path):
 
 @pytest.mark.parametrize("mode", ["score", "energy"])
 def test_refinement_runs_through_mirror(mode):
-    from iterative_inference_segm_tpu.inference.iterative import refinement_scan
+    from iterative_inference_segm.inference.iterative import refinement_scan
 
     params = init_mirror_dae(
         jax.random.PRNGKey(0), n_classes=5, h_specs={"pool1": 4}, depth=2,
@@ -210,11 +210,11 @@ def test_refinement_runs_through_mirror(mode):
 def test_train_mirror_smoke(tmp_path):
     import dataclasses
 
-    from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-    from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-    from iterative_inference_segm_tpu.models import init_fcn8
-    from iterative_inference_segm_tpu.train import TrainConfig, train_dae
-    from iterative_inference_segm_tpu.utils.checkpoint import read_npz_meta
+    from iterative_inference_segm.data.config_datasets import CAMVID
+    from iterative_inference_segm.data.synthetic import synthetic_batches
+    from iterative_inference_segm.models import init_fcn8
+    from iterative_inference_segm.train import TrainConfig, train_dae
+    from iterative_inference_segm.utils.checkpoint import read_npz_meta
 
     cfg = dataclasses.replace(CAMVID, train_crop=(32, 32))
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=cfg.n_classes, fc_channels=32)

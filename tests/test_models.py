@@ -5,7 +5,7 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.models import (
+from iterative_inference_segm.models import (
     init_fcn8,
     fcn8_apply,
     init_dae,
@@ -13,7 +13,7 @@ from iterative_inference_segm_tpu.models import (
     init_contextmod,
     contextmod_apply,
 )
-from iterative_inference_segm_tpu.models.fcn8 import fcn8_logits
+from iterative_inference_segm.models.fcn8 import fcn8_logits
 
 H, W, C = 48, 64, 5
 
@@ -155,7 +155,7 @@ def test_contextmod_differentiable():
 
 
 def test_dae_stem_pool_variant(fcn_params):
-    from iterative_inference_segm_tpu.models.dae import init_dae as _init, dae_apply as _apply
+    from iterative_inference_segm.models.dae import init_dae as _init, dae_apply as _apply
 
     x = jnp.zeros((1, H, W, 3))
     probs, feats = fcn8_apply(fcn_params, x, return_features=("pool4",))
@@ -168,7 +168,7 @@ def test_dae_stem_pool_variant(fcn_params):
 
 
 def test_dae_stem_pool_odd_sizes():
-    from iterative_inference_segm_tpu.models.dae import init_dae as _init, dae_apply as _apply
+    from iterative_inference_segm.models.dae import init_dae as _init, dae_apply as _apply
 
     params = _init(jax.random.PRNGKey(0), n_classes=C, h_specs={}, depth=2, stem_pool=1)
     y = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(1), (1, 45, 61, C)), -1)
@@ -177,7 +177,7 @@ def test_dae_stem_pool_odd_sizes():
 
 
 def test_dae_stem_pool_grad_flows():
-    from iterative_inference_segm_tpu.models.dae import init_dae as _init, dae_apply as _apply
+    from iterative_inference_segm.models.dae import init_dae as _init, dae_apply as _apply
 
     params = _init(jax.random.PRNGKey(0), n_classes=C, h_specs={}, depth=2, stem_pool=1)
     y = jax.nn.softmax(jax.random.normal(jax.random.PRNGKey(1), (1, 32, 32, C)), -1)
@@ -187,7 +187,7 @@ def test_dae_stem_pool_grad_flows():
 
 
 def test_dae_stem_rejects_shallow_tap():
-    from iterative_inference_segm_tpu.models.dae import init_dae as _init
+    from iterative_inference_segm.models.dae import init_dae as _init
 
     with pytest.raises(ValueError):
         _init(jax.random.PRNGKey(0), n_classes=C, h_specs={"input": 3}, stem_pool=1)

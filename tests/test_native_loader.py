@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-from iterative_inference_segm_tpu.data.native_loader import NativeDataset, pack_dataset
+from iterative_inference_segm.data.config_datasets import CAMVID
+from iterative_inference_segm.data.native_loader import NativeDataset, pack_dataset
 
 
 @pytest.fixture(scope="module")
@@ -170,7 +170,7 @@ def test_raw_wire_single_channel(tmp_path):
     # EM-style C=1 data through the raw gather
     import dataclasses
 
-    from iterative_inference_segm_tpu.data.config_datasets import EM
+    from iterative_inference_segm.data.config_datasets import EM
 
     cfg = dataclasses.replace(EM, height=12, width=16)
     rng = np.random.default_rng(1)
@@ -202,7 +202,7 @@ def test_stale_lib_rebuild_failure_falls_back(monkeypatch):
     import subprocess
     import warnings
 
-    from iterative_inference_segm_tpu.data import native_loader as nl
+    from iterative_inference_segm.data import native_loader as nl
 
     nl._load_lib()  # ensure the library exists (builds if needed)
     old = nl._LIB_PATH.stat()

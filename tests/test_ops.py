@@ -5,14 +5,14 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.ops import (
+from iterative_inference_segm.ops import (
     conv2d,
     conv_transpose2d,
     max_pool,
     crop_to,
     bilinear_kernel,
 )
-from iterative_inference_segm_tpu.ops.conv import upsample_pool_indices, avg_pool
+from iterative_inference_segm.ops.conv import upsample_pool_indices, avg_pool
 
 
 def test_conv2d_matches_numpy_valid_1x1():
@@ -130,7 +130,7 @@ def test_avg_pool():
 
 
 def test_avg_pool_conv_path_matches_reduce_window():
-    # The small-C fast path (identity-kernel conv, MXU) must agree with the
+    # The small-C fast path (identity-kernel conv) must agree with the
     # reduce_window formulation that wide maps still use. C=11 takes the conv
     # path; C=128 takes reduce_window; compare both against numpy.
     rng = np.random.default_rng(0)
@@ -173,7 +173,7 @@ def test_conv2d_bf16_accumulates_f32():
 def test_conv_transpose_phase_matches_dilated():
     # the phase-major (space-to-depth) formulation must be numerically
     # identical to the input-dilated reference semantics, fwd and grads
-    from iterative_inference_segm_tpu.ops.conv import (
+    from iterative_inference_segm.ops.conv import (
         _conv_transpose2d_dilated,
         conv_transpose2d_phase,
     )
@@ -195,7 +195,7 @@ def test_conv_transpose_phase_matches_dilated():
 
 
 def test_conv_transpose_phase_odd_kernel_falls_back():
-    from iterative_inference_segm_tpu.ops.conv import conv_transpose2d_phase
+    from iterative_inference_segm.ops.conv import conv_transpose2d_phase
 
     x = jnp.zeros((1, 4, 4, 2))
     w = jnp.zeros((3, 3, 2, 2))  # k != 2*stride

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply, init_dae, dae_apply
-from iterative_inference_segm_tpu.models.fcn8 import fcn8_logits
-from iterative_inference_segm_tpu.ops.losses import masked_crossentropy
-from iterative_inference_segm_tpu.parallel import (
+from iterative_inference_segm.models import init_fcn8, fcn8_apply, init_dae, dae_apply
+from iterative_inference_segm.models.fcn8 import fcn8_logits
+from iterative_inference_segm.ops.losses import masked_crossentropy
+from iterative_inference_segm.parallel import (
     make_mesh,
     batch_sharding,
     replicate,
@@ -75,7 +75,7 @@ def test_dp_gradients_match_single_device(cpu_devices):
 
 def test_dp_refinement_batch_sharded(cpu_devices):
     """Config 3/5-style batched refinement with the batch over the mesh."""
-    from iterative_inference_segm_tpu.inference import make_refiner
+    from iterative_inference_segm.inference import make_refiner
 
     mesh = make_mesh(("data",))
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
@@ -110,7 +110,7 @@ def test_spatial_sharding_forward(cpu_devices):
 def test_dp_half_engine_batch_sharded(cpu_devices):
     """The throughput (half) engine under data-parallel batch sharding:
     output correct vs single-device and stays batch-sharded."""
-    from iterative_inference_segm_tpu.inference.fused import make_half_refiner
+    from iterative_inference_segm.inference.fused import make_half_refiner
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = init_dae(jax.random.PRNGKey(1), n_classes=C, h_specs={"pool4": 512},
@@ -135,7 +135,7 @@ def test_sp_sharded_refinement_matches_unsharded(cpu_devices):
     score steps through the DAE — sharded over the 'space' (H) axis must
     equal the unsharded result. XLA inserts the halo exchanges for every
     conv in both the FCN and the in-scan DAE."""
-    from iterative_inference_segm_tpu.inference import make_refiner
+    from iterative_inference_segm.inference import make_refiner
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = init_dae(jax.random.PRNGKey(1), n_classes=C, h_specs={"pool4": 512})
@@ -165,7 +165,7 @@ def test_sp_sharded_half_engine_matches_unsharded(cpu_devices):
     stem avg-pool, pooled-map scan, and full-res rectification all cross the
     spatial shard boundary — XLA must insert the halo exchanges and the
     result must equal the unsharded engine."""
-    from iterative_inference_segm_tpu.inference.fused import make_half_refiner
+    from iterative_inference_segm.inference.fused import make_half_refiner
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = init_dae(jax.random.PRNGKey(1), n_classes=C, h_specs={"pool4": 512},
@@ -190,9 +190,9 @@ def test_sp_sharded_half_engine_matches_unsharded(cpu_devices):
 def test_shard_map_dp_step_matches_single_device(cpu_devices):
     """Explicit shard_map+psum DP step == single-device step (same update)."""
     import optax
-    from iterative_inference_segm_tpu.parallel.dp import make_dp_grad_step, put_dp
-    from iterative_inference_segm_tpu.models.fcn8 import fcn8_logits
-    from iterative_inference_segm_tpu.ops.losses import masked_crossentropy
+    from iterative_inference_segm.parallel.dp import make_dp_grad_step, put_dp
+    from iterative_inference_segm.models.fcn8 import fcn8_logits
+    from iterative_inference_segm.ops.losses import masked_crossentropy
 
     mesh = make_mesh(("data",))
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
@@ -230,7 +230,7 @@ def test_shard_map_dp_rng_decorrelated_across_devices(cpu_devices):
     """Each device must draw DIFFERENT randomness from the replicated rng
     (ADVICE r1: identical per-device noise reduces effective randomness)."""
     import optax
-    from iterative_inference_segm_tpu.parallel.dp import make_dp_grad_step, put_dp
+    from iterative_inference_segm.parallel.dp import make_dp_grad_step, put_dp
 
     mesh = make_mesh(("data",))
     n_dev = mesh.devices.size
@@ -258,7 +258,7 @@ def test_shard_map_dp_rng_decorrelated_across_devices(cpu_devices):
 def test_shard_map_dp_psum_actually_averages(cpu_devices):
     """Different data on each shard -> the update reflects ALL shards."""
     import optax
-    from iterative_inference_segm_tpu.parallel.dp import make_dp_grad_step, put_dp
+    from iterative_inference_segm.parallel.dp import make_dp_grad_step, put_dp
 
     mesh = make_mesh(("data",))
     params = {"w": jnp.zeros((4,))}
@@ -281,11 +281,11 @@ def test_shard_map_dp_psum_actually_averages(cpu_devices):
 def test_dp_step_compiled_comm_is_one_fused_allreduce(cpu_devices):
     """Communication contract of the explicit DP step: XLA fuses the loss
     pmean and EVERY per-leaf gradient pmean into exactly ONE all-reduce per
-    step (no gathers/permutes) — the collective rides ICI once, as the
+    step (no gathers/permutes) — the collective runs once, as the
     shard_map formulation intends."""
     import optax
 
-    from iterative_inference_segm_tpu.parallel.dp import make_dp_grad_step
+    from iterative_inference_segm.parallel.dp import make_dp_grad_step
 
     mesh = make_mesh(("data",))
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)

@@ -13,10 +13,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.models import init_fcn8
-from iterative_inference_segm_tpu.models.dae import DAE_H_CHANNELS, init_dae
-from iterative_inference_segm_tpu.inference.fused import flagship_forward_fn
-from iterative_inference_segm_tpu.parallel import (
+from iterative_inference_segm.models import init_fcn8
+from iterative_inference_segm.models.dae import DAE_H_CHANNELS, init_dae
+from iterative_inference_segm.inference.fused import flagship_forward_fn
+from iterative_inference_segm.parallel import (
     make_gpipe,
     make_gpipe_stacked,
     make_mesh,
@@ -95,7 +95,7 @@ def test_gpipe_stage_count_mismatch_raises(cpu_devices):
 def test_gpipe_missing_stage_axis_raises(cpu_devices):
     """Passing a plain DP mesh (no 'stage' axis) — the likeliest misuse of
     the pp API — must raise a self-explanatory ValueError, not a KeyError."""
-    from iterative_inference_segm_tpu.parallel import make_pp_flagship
+    from iterative_inference_segm.parallel import make_pp_flagship
 
     params, (s0, s1), _ = _two_stages()
     mesh = make_mesh(("data",), devices=jax.devices()[:2])
@@ -355,9 +355,9 @@ def test_pp_flagship_bf16_matches_sequential(cpu_devices):
 def test_pp_flagship_general_engine_matches_sequential(cpu_devices):
     """engine='general' pipelines the reference-semantics full-resolution
     refinement_scan — equal to the sequential make_refiner path."""
-    from iterative_inference_segm_tpu.inference import make_refiner
-    from iterative_inference_segm_tpu.models import fcn8_apply
-    from iterative_inference_segm_tpu.models.registry import score_apply_fn
+    from iterative_inference_segm.inference import make_refiner
+    from iterative_inference_segm.models import fcn8_apply
+    from iterative_inference_segm.models.registry import score_apply_fn
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = init_dae(
@@ -424,9 +424,9 @@ def test_pp_general_serves_mirror_arch(cpu_devices):
     """The reference-parity mirror DAE through the pipeline (engine=
     'general', dae_arch='mirror') equals its sequential make_refiner run —
     a reference user's exact architecture serves pipelined."""
-    from iterative_inference_segm_tpu.inference import make_refiner
-    from iterative_inference_segm_tpu.models import fcn8_apply
-    from iterative_inference_segm_tpu.models.registry import (
+    from iterative_inference_segm.inference import make_refiner
+    from iterative_inference_segm.models import fcn8_apply
+    from iterative_inference_segm.models.registry import (
         init_score_template,
         score_apply_fn,
     )
@@ -463,9 +463,9 @@ def test_pp_general_serves_mirror_arch(cpu_devices):
 def test_pp_three_stage_general_engine(cpu_devices):
     """The cross term: deeper 3-stage split x general engine — backbone |
     head | full-res reference-semantics refinement."""
-    from iterative_inference_segm_tpu.inference import make_refiner
-    from iterative_inference_segm_tpu.models import fcn8_apply
-    from iterative_inference_segm_tpu.models.registry import score_apply_fn
+    from iterative_inference_segm.inference import make_refiner
+    from iterative_inference_segm.models import fcn8_apply
+    from iterative_inference_segm.models.registry import score_apply_fn
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)
     dae = init_dae(

@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.inference import make_refiner
-from iterative_inference_segm_tpu.models import (
+from iterative_inference_segm.inference import make_refiner
+from iterative_inference_segm.models import (
     init_fcn8,
     fcn8_apply,
     init_dae,

@@ -6,10 +6,10 @@ import pytest
 
 import dataclasses
 
-from iterative_inference_segm_tpu.data.config_datasets import CAMVID
-from iterative_inference_segm_tpu.inference import Predictor
-from iterative_inference_segm_tpu.models import init_fcn8, init_dae
-from iterative_inference_segm_tpu.utils.checkpoint import save_npz
+from iterative_inference_segm.data.config_datasets import CAMVID
+from iterative_inference_segm.inference import Predictor
+from iterative_inference_segm.models import init_fcn8, init_dae
+from iterative_inference_segm.utils.checkpoint import save_npz
 
 TINY = dataclasses.replace(CAMVID, n_classes=4, void_label=4, height=48, width=64)
 
@@ -86,7 +86,7 @@ def test_predict_chunking_matches_single_shot(params):
 
 
 def test_predictor_dp_sharded_matches_single_device(params):
-    from iterative_inference_segm_tpu.parallel import make_mesh
+    from iterative_inference_segm.parallel import make_mesh
 
     fcn, dae = params
     mesh = make_mesh(("data",))
@@ -97,7 +97,7 @@ def test_predictor_dp_sharded_matches_single_device(params):
 
 
 def test_predictor_mesh_rejects_indivisible_batch(params):
-    from iterative_inference_segm_tpu.parallel import make_mesh
+    from iterative_inference_segm.parallel import make_mesh
 
     fcn, _ = params
     mesh = make_mesh(("data",))
@@ -145,9 +145,9 @@ def test_predictor_serves_mirror_arch(tmp_path):
     import jax
     import numpy as np
 
-    from iterative_inference_segm_tpu.inference import Predictor
-    from iterative_inference_segm_tpu.models import init_fcn8, init_mirror_dae
-    from iterative_inference_segm_tpu.utils.checkpoint import save_npz
+    from iterative_inference_segm.inference import Predictor
+    from iterative_inference_segm.models import init_fcn8, init_mirror_dae
+    from iterative_inference_segm.utils.checkpoint import save_npz
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=11, fc_channels=8)
     dae = init_mirror_dae(
@@ -186,7 +186,7 @@ def test_predictor_pp_matches_half_engine(params):
     seam of parallel/pp.py."""
     import jax.numpy as jnp
 
-    from iterative_inference_segm_tpu.parallel import make_mesh
+    from iterative_inference_segm.parallel import make_mesh
 
     fcn, _ = params
     dae1 = init_dae(jax.random.PRNGKey(2), n_classes=4, h_specs={"pool4": 512},
@@ -207,7 +207,7 @@ def test_predictor_pp_matches_half_engine(params):
 
 
 def test_predictor_pp_validation(params):
-    from iterative_inference_segm_tpu.parallel import make_mesh
+    from iterative_inference_segm.parallel import make_mesh
 
     fcn, dae = params
     mesh = make_mesh(("stage",), (2,), devices=jax.devices()[:2])

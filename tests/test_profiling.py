@@ -1,4 +1,4 @@
-"""utils.profiling: trace capture + relay-safe throughput meter (SURVEY.md
+"""utils.profiling: trace capture + device-synced throughput meter (SURVEY.md
 §6 tracing row — the reference has none; these are the rebuild's
 instrumentation surfaces, used by the trainers' --profile-dir flag and the
 epoch timing printouts)."""
@@ -7,7 +7,7 @@ import time
 
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.utils import profiling
+from iterative_inference_segm.utils import profiling
 
 
 def test_sync_forces_completion():

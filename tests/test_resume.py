@@ -3,9 +3,9 @@
 import numpy as np
 import jax
 
-from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-from iterative_inference_segm_tpu.models import init_fcn8
-from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8, train_dae
+from iterative_inference_segm.data.synthetic import synthetic_batches
+from iterative_inference_segm.models import init_fcn8
+from iterative_inference_segm.train import TrainConfig, train_fcn8, train_dae
 from tests.test_train import TINY
 
 
@@ -46,7 +46,7 @@ def test_fcn8_resume_disabled_restarts(tmp_path):
 def test_fcn8_resume_restores_true_best_params(tmp_path):
     """Regression (VERDICT r1 weak #5): after restore, best_params must come
     from best_fcn8.npz (the actual best epoch), not the latest checkpoint."""
-    from iterative_inference_segm_tpu.utils.checkpoint import load_npz
+    from iterative_inference_segm.utils.checkpoint import load_npz
 
     train, val = _data()
     tcfg2 = TrainConfig(learning_rate=1e-3, max_epochs=2, patience=10, seed=0)
@@ -57,7 +57,7 @@ def test_fcn8_resume_restores_true_best_params(tmp_path):
     # max_epochs == already-run epochs (no new training happens): the
     # returned params must equal the npz, NOT the latest checkpoint.
     import numpy as np
-    from iterative_inference_segm_tpu.utils.checkpoint import save_npz
+    from iterative_inference_segm.utils.checkpoint import save_npz
 
     marked = jax.tree.map(lambda a: np.full(np.shape(a), 7.25, np.float32), r1["params"])
     save_npz(tmp_path / "best_fcn8.npz", marked)

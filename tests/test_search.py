@@ -4,8 +4,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from iterative_inference_segm_tpu.inference import grid_search_eps_k
-from iterative_inference_segm_tpu.models import (
+from iterative_inference_segm.inference import grid_search_eps_k
+from iterative_inference_segm.models import (
     init_fcn8,
     fcn8_apply,
     init_dae,
@@ -88,7 +88,7 @@ def test_grid_search_bf16_compute_dtype_runs_and_selects():
 
 
 def test_grid_search_half_rejects_odd_and_wrong_stem():
-    from iterative_inference_segm_tpu.inference.search import grid_search_eps_k_half
+    from iterative_inference_segm.inference.search import grid_search_eps_k_half
     import pytest
 
     fcn = init_fcn8(jax.random.PRNGKey(0), n_classes=C, fc_channels=16)

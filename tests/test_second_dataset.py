@@ -6,16 +6,16 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.data.config_datasets import EM, POLYPS
-from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-from iterative_inference_segm_tpu.inference import make_refiner
-from iterative_inference_segm_tpu.models import (
+from iterative_inference_segm.data.config_datasets import EM, POLYPS
+from iterative_inference_segm.data.synthetic import synthetic_batches
+from iterative_inference_segm.inference import make_refiner
+from iterative_inference_segm.models import (
     init_fcn8,
     fcn8_apply,
     init_dae,
     dae_apply,
 )
-from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8, train_dae
+from iterative_inference_segm.train import TrainConfig, train_fcn8, train_dae
 
 import dataclasses
 
@@ -75,7 +75,7 @@ def test_polyps_dae_training():
 
 
 def test_binary_confusion_and_metrics():
-    from iterative_inference_segm_tpu.ops.metrics import jaccard
+    from iterative_inference_segm.ops.metrics import jaccard
 
     labels = np.array([[[0, 1, 2], [1, 0, 2]]], np.int32)  # 2 = void
     pred = np.array([[[0, 1, 1], [0, 0, 0]]], np.int32)

@@ -8,7 +8,7 @@ table tied to the durable per-run rows in DEMO_HISTORY.jsonl and pins the
 decision itself: the ordering must be monotone at EVERY seed, so a future
 edit that breaks seed-robustness (or a hand-typed table drift) fails CI.
 
-No TPU needed: reads the committed history file only.
+Needs no accelerator: reads the committed history file only.
 """
 
 import json
@@ -16,7 +16,7 @@ import os
 
 import pytest
 
-from iterative_inference_segm_tpu.frontier import FRONTIER, SEED_REPLICATION
+from iterative_inference_segm.frontier import FRONTIER, SEED_REPLICATION
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 HISTORY = os.path.join(REPO, "DEMO_HISTORY.jsonl")
@@ -64,7 +64,7 @@ def test_replicated_seeds_match_newest_history_rows(config):
 
 
 def test_seed0_column_agrees_with_frontier_demo_gain():
-    gains = {name: gain for name, _, gain, _ in FRONTIER}
+    gains = {name: gain for name, gain, _ in FRONTIER}
     for config, seeds in SEED_REPLICATION:
         assert seeds[0] == gains[FRONTIER_NAME[config]], (
             f"SEED_REPLICATION {config!r} seed-0 gain disagrees with the "

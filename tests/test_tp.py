@@ -13,11 +13,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 
-from iterative_inference_segm_tpu.models import init_fcn8, fcn8_apply
-from iterative_inference_segm_tpu.models.fcn8 import fcn8_logits
-from iterative_inference_segm_tpu.ops.losses import masked_crossentropy
-from iterative_inference_segm_tpu.parallel import make_mesh, batch_sharding
-from iterative_inference_segm_tpu.parallel.tp import shard_params_tp, tp_shardings
+from iterative_inference_segm.models import init_fcn8, fcn8_apply
+from iterative_inference_segm.models.fcn8 import fcn8_logits
+from iterative_inference_segm.ops.losses import masked_crossentropy
+from iterative_inference_segm.parallel import make_mesh, batch_sharding
+from iterative_inference_segm.parallel.tp import shard_params_tp, tp_shardings
 
 C = 4
 
@@ -139,7 +139,7 @@ def test_tp_compiled_comm_is_one_allreduce(cpu_devices):
     contains exactly ONE all-reduce — fc7's partial-sum reduction over the
     'model' axis — and no collective-permute; GSPMD keeps the fc6->relu->fc7
     chain local to each shard as designed."""
-    from iterative_inference_segm_tpu.parallel.tp import tp_shardings
+    from iterative_inference_segm.parallel.tp import tp_shardings
 
     params = init_fcn8(jax.random.PRNGKey(0), n_classes=4, fc_channels=16)
     mesh = make_mesh(("model",), (2,), devices=jax.devices()[:2])

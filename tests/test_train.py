@@ -10,11 +10,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from iterative_inference_segm_tpu.data.config_datasets import DatasetConfig
-from iterative_inference_segm_tpu.data.synthetic import synthetic_batches
-from iterative_inference_segm_tpu.models import init_fcn8
-from iterative_inference_segm_tpu.train import TrainConfig, train_fcn8, train_dae
-from iterative_inference_segm_tpu.train.loop import EarlyStopper, make_optimizer
+from iterative_inference_segm.data.config_datasets import DatasetConfig
+from iterative_inference_segm.data.synthetic import synthetic_batches
+from iterative_inference_segm.models import init_fcn8
+from iterative_inference_segm.train import TrainConfig, train_fcn8, train_dae
+from iterative_inference_segm.train.loop import EarlyStopper, make_optimizer
 
 TINY = DatasetConfig(
     name="tiny",
@@ -206,8 +206,8 @@ def test_dae_training_mixed_corruption(train_val):
 
 def test_dae_from_gt_validation():
     import pytest as _pytest
-    from iterative_inference_segm_tpu.train.train_dae import make_dae_train_step
-    from iterative_inference_segm_tpu.train.loop import make_optimizer
+    from iterative_inference_segm.train.train_dae import make_dae_train_step
+    from iterative_inference_segm.train.loop import make_optimizer
 
     tcfg = TrainConfig()
     with _pytest.raises(ValueError):

@@ -13,13 +13,13 @@ configs at fresh training seeds and appends one JSON line per run to
 DEMO_HISTORY.jsonl (repo root) — the durable artifact the journal and
 frontier.py's mean±spread annotations cite.
 
-Configs (exactly the journal rows, ARCHITECTURE.md perf journal r2/r3):
+Configs (the decision-bearing rows of ``frontier.FRONTIER``):
   flagship    : half engine, pool encoder,  stem_pool=1, depth=3, bf16
   stride-stem1: half engine, stride encoder, stem_pool=1, depth=3, bf16
   quarter     : half engine, pool encoder,  stem_pool=2, depth=3, bf16
   composed    : half engine, stride encoder, stem_pool=2, depth=3, bf16
 
-Usage (real TPU, idle host):
+Usage (on the accelerator, idle host):
     python tools/seed_replication.py --seeds 1,2 [--configs flagship,...]
 """
 
